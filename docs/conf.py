@@ -1,12 +1,12 @@
-# Sphinx configuration for hpfrec_tpu (mirrors the reference's autodoc-driven
+# Sphinx configuration for hpfrec_jax (mirrors the reference's autodoc-driven
 # docs, /root/reference/docs/conf.py).
 import os
 import sys
 
 sys.path.insert(0, os.path.abspath(".."))
 
-project = "hpfrec_tpu"
-author = "hpfrec_tpu developers"
+project = "hpfrec_jax"
+author = "hpfrec_jax developers"
 release = "0.1.0"
 
 extensions = [

@@ -1,20 +1,13 @@
-"""MillionSong/TasteProfile-scale end-to-end run on one TPU chip.
+"""MillionSong/TasteProfile-scale end-to-end run on one GPU.
 
 Reproduces the shape of the reference's EchoNest notebook workload
 (/root/reference/example/hpfrec_echonest.ipynb: 38.7M train nonzeros,
 1,019,318 users x 376,768 items, k=50) on synthetic Zipf-distributed
 counts, since the real dataset cannot be downloaded here.  The reference
-records 110 iterations in 38.3 minutes on a 24-core Skylake; one v5e
-chip runs ~0.6 s/iteration (~70 s of device time for the same 110).
+records 110 iterations in 38.3 minutes on a 24-core Skylake; PERF.md has
+the H100 figures for this shape.
 
-At this scale the engine automatically enables:
-  - bfloat16 gather tables (the float32 user table is 204 MB, far past
-    the fast-gather window; see PERFORMANCE.md),
-  - column-tiled ELL (every E-step gather reads a <=40 MB table chunk),
-  - dispatch capping (iteration blocks split so no single XLA dispatch
-    runs long enough to trip runtime watchdogs).
-
-Run:  python example/millionsong_scale.py   (about 5 minutes total)
+Run:  python example/millionsong_scale.py
 """
 
 import time
@@ -37,8 +30,8 @@ def synth_tasteprofile(nU=1_019_318, nI=376_768, nnz=38_700_000, seed=0):
 def main():
     import pandas as pd
 
-    from hpfrec_tpu import HPF
-    from hpfrec_tpu.utils.evaluation import evaluate
+    from hpfrec_jax import HPF
+    from hpfrec_jax.utils.evaluation import evaluate
 
     print("Generating synthetic TasteProfile-size data (38.7M nonzeros)...")
     arr = synth_tasteprofile()

@@ -9,7 +9,7 @@ anywhere.  Run:  python example/quickstart.py
 import numpy as np
 import pandas as pd
 
-from hpfrec_tpu import HPF
+from hpfrec_jax import HPF
 
 
 def make_synthetic(nusers=2000, nitems=1500, nnz=120_000, seed=1):
@@ -42,7 +42,7 @@ def main():
     # --- evaluation ---------------------------------------------------
     print("\nheld-out llk:", model.eval_llk(val.copy()))
 
-    from hpfrec_tpu.utils import evaluation as ev
+    from hpfrec_jax.utils import evaluation as ev
 
     report = ev.evaluate(model, val, k=10, exclude_seen=True, random_seed=7)
     print("ranking eval:", {kk: round(v, 4) if isinstance(v, float) else v

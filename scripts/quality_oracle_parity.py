@@ -1,4 +1,4 @@
-"""Quality parity with a REAL comparison column (round-4 verdict item 3).
+"""Quality parity with a REAL comparison column.
 
 Fits the framework AND ``tests/oracle.py``'s ``OracleHPF`` — the
 independent numpy implementation of the reference math
@@ -7,12 +7,12 @@ SAME synthetic split with the SAME seed, then reports the reference
 notebook's quality protocol (mean predicted rate on test vs random pairs,
 ROC-AUC, corr) plus recall@10 / NDCG@10 side by side.  Both models start
 from the identical MT19937 init bitstream, so metric deltas measure only
-engine numerics (f32 TPU vs f64 numpy) — this is the like-for-like
+engine numerics (float32 on the device vs float64 numpy) — the like-for-like
 "matching llk & recall@k within run variance" column BASELINE.md asks
 for.  The real TasteProfile and a compiled reference build are
 environment-blocked (no network, no cython — verified round 4).
 
-Run (real chip):
+Run (on a GPU):
   python scripts/quality_oracle_parity.py               # 3M-nnz Zipf
   QUALITY_SCALE=ml100k python scripts/quality_oracle_parity.py
 """
@@ -51,8 +51,8 @@ def synth_zipf(nU, nI, nnz, seed=0):
 def main():
     import pandas as pd
 
-    from hpfrec_tpu import HPF
-    from hpfrec_tpu.utils.evaluation import evaluate
+    from hpfrec_jax import HPF
+    from hpfrec_jax.utils.evaluation import evaluate
     from oracle import OracleHPF
 
     scale = os.environ.get("QUALITY_SCALE", "zipf3m")
@@ -133,7 +133,7 @@ def main():
         ("NDCG@10", ev_m["ndcg_at_10"], ev_o["ndcg_at_10"]),
     ]
     print("\n%-30s %16s %16s" % ("metric (scale=%s)" % scale,
-                                 "framework (TPU)", "oracle (ref math)"))
+                                 "framework (f32)", "oracle (ref math)"))
     for name, a, b in rows:
         fa = "None" if a is None else ("%.6g" % a)
         print("%-30s %16s %16.6g" % (name, fa, b))

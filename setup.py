@@ -1,13 +1,13 @@
-"""Packaging for hpfrec_tpu.
+"""Packaging for hpfrec_jax.
 
 The reference package (``/root/reference/setup.py:33-258``) subclasses
 ``build_ext`` to probe compiler flags (``-march=native``, LTO, eight
 OpenMP flag spellings) and swap in a no-OpenMP fallback when the probe
 fails.  Here the equivalent probing lives in
-``hpfrec_tpu/_native/build.py`` and runs lazily on first import, so the
+``hpfrec_jax/_native/build.py`` and runs lazily on first import, so the
 package itself is pure Python and installs anywhere — including
 machines with no C++ toolchain, where the host data layer falls back to
-numpy/scipy transparently (``hpfrec_tpu/utils/data.py``).
+numpy/scipy transparently (``hpfrec_jax/utils/data.py``).
 
 This setup.py additionally tries to warm the native build at
 wheel-build time so a same-machine sdist/editable install doesn't pay
@@ -29,13 +29,13 @@ class build_py_warm_native(build_py):
     def run(self):
         super().run()
         try:
-            # Load build.py directly — importing hpfrec_tpu._native via the
-            # package root would execute hpfrec_tpu/__init__.py and pull in
+            # Load build.py directly — importing hpfrec_jax._native via the
+            # package root would execute hpfrec_jax/__init__.py and pull in
             # jax, which is absent under PEP 517 build isolation.
-            path = os.path.join(self.build_lib, "hpfrec_tpu", "_native",
+            path = os.path.join(self.build_lib, "hpfrec_jax", "_native",
                                 "build.py")
             spec = importlib.util.spec_from_file_location(
-                "_hpfrec_tpu_native_build", path)
+                "_hpfrec_jax_native_build", path)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
             mod.build_native(verbose=True)

@@ -9,9 +9,9 @@ from oracle import OracleHPF, synth_counts
 def _setup(dtype, k=7, seed=42):
     import jax.numpy as jnp
 
-    from hpfrec_tpu.models.state import Hyperparams, initialize_state
-    from hpfrec_tpu.ops.cavi import BlockedCOO
-    from hpfrec_tpu.utils.data import block_coo
+    from hpfrec_jax.models.state import Hyperparams, initialize_state
+    from hpfrec_jax.ops.cavi import BlockedCOO
+    from hpfrec_jax.utils.data import block_coo
 
     if dtype == np.float64:
         import jax
@@ -40,7 +40,7 @@ def test_init_matches_reference_bitstream():
 
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-4), (np.float64, 1e-10)])
 def test_single_step_matches_oracle(dtype, tol):
-    from hpfrec_tpu.ops.cavi import cavi_step
+    from hpfrec_jax.ops.cavi import cavi_step
 
     state, oracle, data, (y, iu, ii), hp = _setup(dtype)
     new = cavi_step(state, data, hp)
@@ -55,7 +55,7 @@ def test_single_step_matches_oracle(dtype, tol):
 def test_ten_steps_match_oracle(dtype, tol):
     import jax.numpy as jnp
 
-    from hpfrec_tpu.ops.cavi import run_cavi_block
+    from hpfrec_jax.ops.cavi import run_cavi_block
 
     state, oracle, data, (y, iu, ii), hp = _setup(dtype)
     state = run_cavi_block(state, data, jnp.asarray(10, jnp.int32), hp)
@@ -66,8 +66,8 @@ def test_ten_steps_match_oracle(dtype, tol):
 
 
 def test_llk_matches_oracle():
-    from hpfrec_tpu.ops.cavi import cavi_step
-    from hpfrec_tpu.ops.metrics import train_llk_rmse
+    from hpfrec_jax.ops.cavi import cavi_step
+    from hpfrec_jax.ops.metrics import train_llk_rmse
 
     state, oracle, data, (y, iu, ii), hp = _setup(np.float32)
     state = cavi_step(state, data, hp)
@@ -85,8 +85,8 @@ def test_llk_monotone_ascent():
     (SURVEY.md §4 plan (c))."""
     import jax.numpy as jnp
 
-    from hpfrec_tpu.ops.cavi import run_cavi_block
-    from hpfrec_tpu.ops.metrics import train_llk_rmse
+    from hpfrec_jax.ops.cavi import run_cavi_block
+    from hpfrec_jax.ops.metrics import train_llk_rmse
 
     state, _, data, (y, iu, ii), hp = _setup(np.float32)
     llks = []
@@ -106,10 +106,10 @@ def test_sharded_matches_single_device():
     import jax
     import jax.numpy as jnp
 
-    from hpfrec_tpu.models.state import Hyperparams, initialize_state
-    from hpfrec_tpu.ops.cavi import BlockedCOO, cavi_step
-    from hpfrec_tpu.parallel import make_mesh, make_sharded_segment_sums, shard_blocked_data
-    from hpfrec_tpu.utils.data import block_coo
+    from hpfrec_jax.models.state import Hyperparams, initialize_state
+    from hpfrec_jax.ops.cavi import BlockedCOO, cavi_step
+    from hpfrec_jax.parallel import make_mesh, make_sharded_segment_sums, shard_blocked_data
+    from hpfrec_jax.utils.data import block_coo
 
     assert len(jax.devices()) == 8, "tests must run with 8 virtual CPU devices"
     nU, nI, k = 60, 45, 7

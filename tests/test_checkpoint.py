@@ -12,7 +12,7 @@ def _df(seed=2, nU=60, nI=40):
 
 
 def test_full_batch_checkpoint_resume(tmp_path):
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     df = _df()
     ck = str(tmp_path / "ck")
@@ -37,7 +37,7 @@ def test_full_batch_checkpoint_resume(tmp_path):
 
 
 def test_svi_checkpoint_resume(tmp_path):
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     df = _df()
     ck = str(tmp_path / "ck")
@@ -65,8 +65,8 @@ def test_table_sharded_checkpoint_resume(tmp_path):
     and continues.  The resumed run must match an uninterrupted one."""
     import jax
 
-    from hpfrec_tpu import HPF
-    from hpfrec_tpu.parallel import make_mesh
+    from hpfrec_jax import HPF
+    from hpfrec_jax.parallel import make_mesh
 
     if len(jax.devices()) < 2:
         import pytest
@@ -86,7 +86,7 @@ def test_table_sharded_checkpoint_resume(tmp_path):
               checkpoint_folder=ck, checkpoint_every=5)
     m_a.fit(df.copy())
     # the checkpoint on disk must already be real-shaped
-    from hpfrec_tpu.utils import io as io_utils
+    from hpfrec_jax.utils import io as io_utils
 
     ck_state, _, _ = io_utils.load_checkpoint(ck)
     assert ck_state.G_shp.shape == (m_a.nusers, 6)
@@ -102,7 +102,7 @@ def test_table_sharded_checkpoint_resume(tmp_path):
 
 
 def test_resume_without_checkpoint_raises(tmp_path):
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     m = HPF(k=4, maxiter=4, check_every=4, verbose=False,
             checkpoint_folder=str(tmp_path / "none"))
@@ -114,7 +114,7 @@ def test_resume_without_checkpoint_raises(tmp_path):
 
 
 def test_model_save_load_roundtrip(tmp_path):
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     df = _df()
     m = HPF(k=6, maxiter=10, check_every=5, stop_crit="maxiter",

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from hpfrec_tpu import compat
+from hpfrec_jax import compat
 
 
 def test_get_csc_data_matches_scipy():

@@ -15,21 +15,21 @@ def _df(seed=3, nU=40, nI=30, nnz=500):
 
 
 def test_coo_shard_tables_raises():
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     with pytest.raises(ValueError, match="shard_tables.*engine='ell'"):
         HPF(k=5, engine="coo", shard_tables=True)
 
 
 def test_coo_gather_dtype_warns():
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     with pytest.warns(UserWarning, match="gather_dtype.*no effect"):
         HPF(k=5, engine="coo", gather_dtype="bfloat16")
 
 
 def test_svi_shard_tables_warns():
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     m = HPF(k=5, engine="ell", shard_tables=True, users_per_batch=10,
             maxiter=2, check_every=1, stop_crit="maxiter", random_seed=1,
@@ -39,7 +39,7 @@ def test_svi_shard_tables_warns():
 
 
 def test_ell_block_size_warns_without_valset():
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     m = HPF(k=5, engine="ell", block_size=4096, maxiter=1, check_every=1,
             stop_crit="maxiter", random_seed=1, verbose=False)
@@ -50,7 +50,7 @@ def test_ell_block_size_warns_without_valset():
 def test_ell_block_size_no_warning_with_valset(recwarn):
     """With a validation set the blocked-COO val buffers DO use block_size,
     so no warning should fire."""
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     df = _df(nnz=600)
     val = df.iloc[:80]
@@ -68,7 +68,7 @@ def test_ell_block_size_no_warning_with_valset(recwarn):
 # ----------------------------------------------------------------------
 
 def test_dispatch_cap_uses_max_of_samples():
-    from hpfrec_tpu.models.hpf import _dispatch_cap_from_samples
+    from hpfrec_jax.models.hpf import _dispatch_cap_from_samples
 
     # one lucky-fast sample next to an honest one must not inflate the cap
     assert _dispatch_cap_from_samples([0.01, 10.0], budget=30) == 2
@@ -82,10 +82,10 @@ def test_dispatch_cap_uses_max_of_samples():
 def test_capped_runner_calibrates_from_two_samples(monkeypatch):
     """The wrapper times TWO compile-free iterations and the cap follows
     the slower one (a noisy-fast first sample is harmless)."""
-    from hpfrec_tpu import HPF
-    from hpfrec_tpu.models import hpf as hpf_mod
+    from hpfrec_jax import HPF
+    from hpfrec_jax.models import hpf as hpf_mod
 
-    monkeypatch.setenv("HPFREC_TPU_DISPATCH_BUDGET_S", "30")
+    monkeypatch.setenv("HPFREC_DISPATCH_BUDGET_S", "30")
 
     calls = []
 
@@ -116,10 +116,10 @@ def test_capped_runner_calibrates_across_check_every_1_blocks(monkeypatch):
     single-iteration calls are the timing samples, and later calls run
     under the cap with no re-entry into the warm-up branch (advisor
     round 4)."""
-    from hpfrec_tpu import HPF
-    from hpfrec_tpu.models import hpf as hpf_mod
+    from hpfrec_jax import HPF
+    from hpfrec_jax.models import hpf as hpf_mod
 
-    monkeypatch.setenv("HPFREC_TPU_DISPATCH_BUDGET_S", "30")
+    monkeypatch.setenv("HPFREC_DISPATCH_BUDGET_S", "30")
 
     calls = []
 
@@ -150,7 +150,7 @@ def test_svi_batch_cap_calibrates_from_probe_dispatches():
     """_calibrate_batch_cap: one compiling probe, two timed probes, cap
     from the MAX per-batch sample + margin (the round-4 fixed 64 is gone;
     verdict weak #5)."""
-    from hpfrec_tpu.models.hpf import _calibrate_batch_cap
+    from hpfrec_jax.models.hpf import _calibrate_batch_cap
 
     dispatched = []
     ticks = iter([0.0, 8.0, 100.0, 180.0])  # per-batch: 1.0 then 10.0
@@ -179,7 +179,7 @@ def test_state_cache_freezes_host_arrays():
     invalidates by identity."""
     import pytest
 
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     m = HPF(k=5, maxiter=3, check_every=3, stop_crit="maxiter",
             random_seed=1, verbose=False)
@@ -201,7 +201,7 @@ def test_partial_fit_empty_users_in_batch_raises_clearly():
     import pandas as pd
     import pytest
 
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     m = HPF(k=5, reindex=False, keep_all_objs=True, verbose=False,
             random_seed=1)
@@ -215,7 +215,7 @@ def test_partial_fit_empty_users_in_batch_raises_clearly():
 def test_fit_stats_populated_and_printed(capsys):
     """fit_stats_ is the auditable end-to-end throughput record (round-3
     verdict weak #6: it existed but was write-only)."""
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     m = HPF(k=5, maxiter=4, check_every=2, stop_crit="maxiter",
             random_seed=1, verbose=True)

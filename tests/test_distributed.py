@@ -33,13 +33,13 @@ jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, {repo!r})
 sys.path.insert(0, {tests!r})
 from oracle import synth_counts
-from hpfrec_tpu.parallel import distributed
+from hpfrec_jax.parallel import distributed
 mesh = distributed.initialize(coordinator_address="127.0.0.1:" + port,
                               num_processes=2, process_id=pid)
 assert jax.process_count() == 2, jax.process_count()
 assert len(jax.devices()) == 8, len(jax.devices())
 import pandas as pd
-from hpfrec_tpu import HPF
+from hpfrec_jax import HPF
 y, iu, ii = synth_counts(83, 45, nnz=800, seed=5)
 df = pd.DataFrame({{"UserId": iu, "ItemId": ii, "Count": y}})
 kw = dict(users_per_batch=24) if mode == "svi" else dict(
@@ -79,8 +79,8 @@ def _run_two_processes(tmp_path, mode):
 
 
 def _single_process_reference(mode):
-    from hpfrec_tpu import HPF
-    from hpfrec_tpu.parallel import make_mesh
+    from hpfrec_jax import HPF
+    from hpfrec_jax.parallel import make_mesh
 
     y, iu, ii = synth_counts(83, 45, nnz=800, seed=5)
     df = pd.DataFrame({"UserId": iu, "ItemId": ii, "Count": y})
@@ -113,7 +113,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, {repo!r})
-from hpfrec_tpu.parallel import distributed
+from hpfrec_jax.parallel import distributed
 try:
     distributed.initialize(coordinator_address="127.0.0.1:1",
                            num_processes=2, process_id=1,

@@ -5,8 +5,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from hpfrec_tpu import HPF
-from hpfrec_tpu.utils import evaluation as ev
+from hpfrec_jax import HPF
+from hpfrec_jax.utils import evaluation as ev
 
 
 def _manual_model(Theta, Beta):

@@ -21,7 +21,7 @@ GOLDEN_RMSE = np.array([4.090780, 3.699739, 3.647795,
 
 
 def _fit_with_trajectory(monkeypatch):
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     y, iu, ii = synth_counts(120, 80, nnz=2000, seed=42)
     df = pd.DataFrame({"UserId": iu, "ItemId": ii, "Count": y})

@@ -17,7 +17,7 @@ def _make_df(nU, nI, nnz, seed):
 
 
 def _base_model(**kw):
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     kw.setdefault("k", 5)
     kw.setdefault("verbose", False)
@@ -136,7 +136,7 @@ def test_ncores_warning_without_openmp(monkeypatch):
     have it or when ncores == 1."""
     import warnings
 
-    from hpfrec_tpu import _native
+    from hpfrec_jax import _native
 
     monkeypatch.setattr(_native, "get", lambda: 0)
     with pytest.warns(UserWarning, match="multi-threading"):
@@ -156,8 +156,8 @@ def test_partial_fit_shards_over_mesh_matches_single_device():
     story — ``partial_fit``'s phi segment sums shard over the active mesh
     and must match a single-device update."""
     import jax
-    from hpfrec_tpu.parallel import make_mesh
-    from hpfrec_tpu.parallel.mesh import DATA_AXIS
+    from hpfrec_jax.parallel import make_mesh
+    from hpfrec_jax.parallel.mesh import DATA_AXIS
 
     if len(jax.devices()) < 2:
         pytest.skip("needs a multi-device mesh")

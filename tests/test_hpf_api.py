@@ -6,7 +6,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from hpfrec_tpu import HPF
+from hpfrec_jax import HPF
 
 
 @pytest.fixture(scope="module")

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-native = pytest.importorskip("hpfrec_tpu._native")
+native = pytest.importorskip("hpfrec_jax._native")
 
 if not native.available():
     pytest.skip("native toolchain unavailable", allow_module_level=True)
@@ -105,7 +105,7 @@ def test_data_pipeline_uses_native_consistently():
     """process_data native sort == numpy fallback sort (same blocked data)."""
     import pandas as pd
 
-    from hpfrec_tpu.utils.data import process_data
+    from hpfrec_jax.utils.data import process_data
 
     rng = np.random.default_rng(3)
     df = pd.DataFrame({

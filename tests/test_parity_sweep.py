@@ -73,12 +73,12 @@ def _triplets(shape_kind, seed):
 def _run_config(shape_kind, k, engine, shard_tables, use_float, seed,
                 niter=3, force_tile=False, gather_dtype="auto", tol=None,
                 monkeypatch=None):
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     if force_tile:
         # shrink the tiling thresholds so column tiling engages at toy
         # scale (normally it needs a >48 MB table)
-        import hpfrec_tpu.ops.ell as ell_mod
+        import hpfrec_jax.ops.ell as ell_mod
 
         monkeypatch.setattr(ell_mod, "TILE_THRESHOLD_BYTES", 256)
         monkeypatch.setattr(ell_mod, "FAST_GATHER_BYTES", 512)

@@ -67,7 +67,7 @@ def _parity(users_per_batch, items_per_batch, host_batches=False, mesh=None,
     y, iu, ii = synth_counts(nU, nI, nnz=nnz, seed=4, dtype=np.float64)
     df = pd.DataFrame({"UserId": iu, "ItemId": ii, "Count": y})
 
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     step_size = lambda x: 1 / np.sqrt(x + 2)  # noqa: E731
     model = HPF(k=k, maxiter=4, check_every=4, stop_crit="maxiter",
@@ -76,11 +76,11 @@ def _parity(users_per_batch, items_per_batch, host_batches=False, mesh=None,
                 mesh=mesh)
     import os
 
-    os.environ["HPFREC_TPU_SVI_HOST_BATCHES"] = "1" if host_batches else "0"
+    os.environ["HPFREC_SVI_HOST_BATCHES"] = "1" if host_batches else "0"
     try:
         model.fit(df)
     finally:
-        os.environ.pop("HPFREC_TPU_SVI_HOST_BATCHES", None)
+        os.environ.pop("HPFREC_SVI_HOST_BATCHES", None)
 
     oracle = OracleHPF(0.3, 0.3, 1.0, 0.3, 0.3, 1.0, k).init(nU, nI, seed, np.float64)
     _run_oracle_svi(oracle, y, iu, ii, nU, nI,
@@ -105,7 +105,7 @@ def test_alternating_epochs_parity():
 
 
 def test_alternating_epochs_parity_host_fallback():
-    """The per-batch host-gather path (HPFREC_TPU_SVI_HOST_BATCHES=1) must
+    """The per-batch host-gather path (HPFREC_SVI_HOST_BATCHES=1) must
     stay semantically identical to the device-resident epoch runner."""
     _parity(13, 11, host_batches=True)
 
@@ -113,7 +113,7 @@ def test_alternating_epochs_parity_host_fallback():
 def test_alternating_epochs_parity_sharded():
     """SVI on an 8-device mesh (batch nonzeros sharded, psum of phi sums)
     must match the single-device run and the oracle."""
-    from hpfrec_tpu.parallel import make_mesh
+    from hpfrec_jax.parallel import make_mesh
 
     _parity(13, 11, mesh=make_mesh())
 
@@ -128,7 +128,7 @@ def test_multichunk_batches_parity():
 def test_multichunk_batches_parity_sharded():
     """Multi-chunk accumulation composed with the mesh-parallel phi sums
     (per-chunk psum)."""
-    from hpfrec_tpu.parallel import make_mesh
+    from hpfrec_jax.parallel import make_mesh
 
     _parity(50, 35, nU=60, nI=40, nnz=6000, mesh=make_mesh())
 
@@ -139,7 +139,7 @@ def test_svi_ell_metric_no_blocked_coo():
     copy (the mode exists for out-of-memory data)."""
     import pandas as pd
 
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     rng = np.random.default_rng(2)
     df = pd.DataFrame({"UserId": rng.integers(0, 60, 1500),

@@ -9,7 +9,7 @@ from oracle import OracleHPF, synth_counts
 def _mk(dtype=np.float64, k=6, seed=11):
     import jax
 
-    from hpfrec_tpu.models.state import Hyperparams, initialize_state
+    from hpfrec_jax.models.state import Hyperparams, initialize_state
 
     if dtype == np.float64:
         jax.config.update("jax_enable_x64", True)
@@ -37,7 +37,7 @@ def _pad_batch(y, iu, ii, dtype):
 def test_svi_batch_matches_oracle(user_side, blend_all):
     import jax.numpy as jnp
 
-    from hpfrec_tpu.ops.svi import build_row_mask, svi_batch_update
+    from hpfrec_jax.ops.svi import build_row_mask, svi_batch_update
 
     dtype = np.float64
     state, oracle, (y, iu, ii), hp, nU, nI = _mk(dtype)
@@ -79,7 +79,7 @@ def test_partial_fit_matches_oracle_user_batch():
     """HPF.partial_fit == oracle user-batch with blend-all-scalers."""
     import pandas as pd
 
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     dtype = np.float64
     nU, nI, k, seed = 50, 35, 6, 11
@@ -113,8 +113,8 @@ def test_user_factors_matches_oracle_loop():
 
     import jax.numpy as jnp
 
-    from hpfrec_tpu.models.state import Hyperparams
-    from hpfrec_tpu.ops.svi import user_factors_loop
+    from hpfrec_jax.models.state import Hyperparams
+    from hpfrec_jax.ops.svi import user_factors_loop
 
     import jax
 
@@ -174,7 +174,7 @@ def test_partial_fit_empty_items_in_batch_blends_nothing():
     whose padding could otherwise mark row 0 as in-batch."""
     import pandas as pd
 
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     dtype = np.float64
     nU, nI, k, seed = 40, 30, 5, 7

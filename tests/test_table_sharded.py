@@ -18,10 +18,10 @@ def test_table_sharded_step_matches_replicated():
     import jax
     import jax.numpy as jnp
 
-    from hpfrec_tpu.models.state import Hyperparams, initialize_state
-    from hpfrec_tpu.ops.ell import build_ell, cavi_step_ell, device_ell
-    from hpfrec_tpu.parallel import make_mesh
-    from hpfrec_tpu.parallel.table_sharded import (build_sharded_ell,
+    from hpfrec_jax.models.state import Hyperparams, initialize_state
+    from hpfrec_jax.ops.ell import build_ell, cavi_step_ell, device_ell
+    from hpfrec_jax.parallel import make_mesh
+    from hpfrec_jax.parallel.table_sharded import (build_sharded_ell,
                                                    make_table_sharded_step,
                                                    pad_state,
                                                    plan_table_sharding)
@@ -77,8 +77,8 @@ def test_hpf_fit_shard_tables_matches_single_device():
 
     import jax
 
-    from hpfrec_tpu import HPF
-    from hpfrec_tpu.parallel import make_mesh
+    from hpfrec_jax import HPF
+    from hpfrec_jax.parallel import make_mesh
 
     y, iu, ii = synth_counts(83, 45, nnz=1000, seed=6)
     df = pd.DataFrame({"UserId": iu, "ItemId": ii, "Count": y})
@@ -101,10 +101,10 @@ def test_table_sharded_with_split_rows():
     import jax
     import jax.numpy as jnp
 
-    from hpfrec_tpu.models.state import Hyperparams, initialize_state
-    from hpfrec_tpu.ops.ell import build_ell, cavi_step_ell, device_ell
-    from hpfrec_tpu.parallel import make_mesh
-    from hpfrec_tpu.parallel.table_sharded import (build_sharded_ell,
+    from hpfrec_jax.models.state import Hyperparams, initialize_state
+    from hpfrec_jax.ops.ell import build_ell, cavi_step_ell, device_ell
+    from hpfrec_jax.parallel import make_mesh
+    from hpfrec_jax.parallel.table_sharded import (build_sharded_ell,
                                                    make_table_sharded_step,
                                                    pad_state,
                                                    plan_table_sharding)
@@ -156,10 +156,10 @@ def test_table_sharded_sub_tiled_ring():
     import jax
     import jax.numpy as jnp
 
-    from hpfrec_tpu.models.state import Hyperparams, initialize_state
-    from hpfrec_tpu.ops.ell import build_ell, cavi_step_ell, device_ell
-    from hpfrec_tpu.parallel import make_mesh
-    from hpfrec_tpu.parallel.table_sharded import (build_sharded_ell,
+    from hpfrec_jax.models.state import Hyperparams, initialize_state
+    from hpfrec_jax.ops.ell import build_ell, cavi_step_ell, device_ell
+    from hpfrec_jax.parallel import make_mesh
+    from hpfrec_jax.parallel.table_sharded import (build_sharded_ell,
                                                    make_table_sharded_step,
                                                    pad_state)
 
@@ -203,9 +203,9 @@ def test_table_sharded_bf16_ring_close_to_f32():
     import jax
     import jax.numpy as jnp
 
-    from hpfrec_tpu.models.state import Hyperparams, initialize_state
-    from hpfrec_tpu.parallel import make_mesh
-    from hpfrec_tpu.parallel.table_sharded import (build_sharded_ell,
+    from hpfrec_jax.models.state import Hyperparams, initialize_state
+    from hpfrec_jax.parallel import make_mesh
+    from hpfrec_jax.parallel.table_sharded import (build_sharded_ell,
                                                    make_table_sharded_step,
                                                    pad_state,
                                                    plan_table_sharding)
@@ -245,9 +245,9 @@ def test_degree_balanced_rows_parity_and_balance(monkeypatch):
     per-device nonzero load on skewed data."""
     import pandas as pd
 
-    from hpfrec_tpu import HPF
-    from hpfrec_tpu.parallel import make_mesh
-    from hpfrec_tpu.parallel.table_sharded import plan_balanced_rows
+    from hpfrec_jax import HPF
+    from hpfrec_jax.parallel import make_mesh
+    from hpfrec_jax.parallel.table_sharded import plan_balanced_rows
 
     nU, nI = 120, 60
     rng = np.random.default_rng(3)
@@ -259,7 +259,7 @@ def test_degree_balanced_rows_parity_and_balance(monkeypatch):
     df = pd.DataFrame({"UserId": iu, "ItemId": ii, "Count": y})
 
     def fit(balance):
-        monkeypatch.setenv("HPFREC_TPU_TABLE_BALANCE", "1" if balance else "0")
+        monkeypatch.setenv("HPFREC_TABLE_BALANCE", "1" if balance else "0")
         m = HPF(k=5, maxiter=8, check_every=4, stop_crit="train-llk",
                 stop_thr=1e-12, random_seed=9, verbose=False,
                 mesh=make_mesh(), shard_tables=True)
@@ -292,8 +292,8 @@ def test_table_sharded_divisibility_edges(nU, nI):
     triggered on such shapes."""
     import pandas as pd
 
-    from hpfrec_tpu import HPF
-    from hpfrec_tpu.parallel import make_mesh
+    from hpfrec_jax import HPF
+    from hpfrec_jax.parallel import make_mesh
 
     rng = np.random.default_rng(nU + nI)
     n = 30 * max(nU, nI)

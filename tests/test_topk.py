@@ -4,7 +4,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from hpfrec_tpu import HPF
+from hpfrec_jax import HPF
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +68,7 @@ def test_topn_batch_backfill_small_catalog():
     unseen items rank first, the user's best seen items backfill."""
     import numpy as np
 
-    from hpfrec_tpu.ops.topk import topn_batch
+    from hpfrec_jax.ops.topk import topn_batch
 
     nU, nI, k = 3, 6, 2
     rng = np.random.default_rng(0)
@@ -96,7 +96,7 @@ def test_topn_batch_backfill_large_batch():
     batch with a pathological member stays cheap and correct."""
     import numpy as np
 
-    from hpfrec_tpu.ops.topk import topn_batch
+    from hpfrec_jax.ops.topk import topn_batch
 
     nU, nI, k, b, n = 50, 40, 4, 2048, 8
     rng = np.random.default_rng(1)

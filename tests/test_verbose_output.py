@@ -10,7 +10,7 @@ from oracle import synth_counts
 
 
 def _fit_capture(capsys, **kw):
-    from hpfrec_tpu import HPF
+    from hpfrec_jax import HPF
 
     y, iu, ii = synth_counts(50, 40, nnz=700, seed=1)
     df = pd.DataFrame({"UserId": iu, "ItemId": ii, "Count": y})
